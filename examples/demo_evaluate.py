@@ -3,7 +3,7 @@
 
 Renders an out-and-back loop trajectory, writes it as PGM frames + a
 TUM-format ground-truth file, then runs the evaluation CLI
-(`python -m sift_pyocl_tpu.evaluate`) over the directory — the same flow a
+(`python -m sift_pyocl_jax.evaluate`) over the directory — the same flow a
 user follows with a real dataset on disk.
 
 Usage: python examples/demo_evaluate.py [--out DIR] [--frames N]
@@ -23,8 +23,8 @@ def main():
     ap.add_argument("--frames", type=int, default=10)
     args = ap.parse_args()
 
-    from sift_pyocl_tpu.evaluate import main as eval_main, save_sequence
-    from sift_pyocl_tpu.utils.render3d import render_sequence
+    from sift_pyocl_jax.evaluate import main as eval_main, save_sequence
+    from sift_pyocl_jax.utils.render3d import render_sequence
 
     out = args.out or tempfile.mkdtemp(prefix="sift_eval_demo_")
     print(f"rendering {args.frames}-frame loop sequence -> {out}")
@@ -33,7 +33,7 @@ def main():
         arc_deg=30.0, out_and_back=True,
     )
     seq_dir, gt_path = save_sequence(out, frames, gtR, gtT)
-    print("running: python -m sift_pyocl_tpu.evaluate "
+    print("running: python -m sift_pyocl_jax.evaluate "
           f"--frames {seq_dir} --gt {gt_path} --fx {float(K[0,0])}")
     rc = eval_main([
         "--frames", str(seq_dir), "--gt", str(gt_path),

@@ -11,8 +11,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from sift_pyocl_tpu import LinearAlign, MatchPlan, SiftPlan
-from sift_pyocl_tpu.utils.testimage import transformed_pair
+from sift_pyocl_jax import LinearAlign, MatchPlan, SiftPlan
+from sift_pyocl_jax.utils.testimage import transformed_pair
 
 
 def main():

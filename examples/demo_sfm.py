@@ -20,9 +20,9 @@ if os.environ.get("JAX_PLATFORMS"):
     jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 import jax.numpy as jnp
 
-from sift_pyocl_tpu.sfm.ba import BAParams, run_ba
-from sift_pyocl_tpu.sfm.distributed import DistributedBA
-from sift_pyocl_tpu.sfm.synthetic import make_problem
+from sift_pyocl_jax.sfm.ba import BAParams, run_ba
+from sift_pyocl_jax.sfm.distributed import DistributedBA
+from sift_pyocl_jax.sfm.synthetic import make_problem
 
 
 def main():

@@ -13,8 +13,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from sift_pyocl_tpu import SiftPlan
-from sift_pyocl_tpu.utils.testimage import synthetic_scene
+from sift_pyocl_jax import SiftPlan
+from sift_pyocl_jax.utils.testimage import synthetic_scene
 
 
 def main():

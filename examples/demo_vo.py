@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from sift_pyocl_tpu import SiftConfig
-from sift_pyocl_tpu.models.vo import VOConfig, vo_init, vo_step
-from sift_pyocl_tpu.utils.testimage import blob_cloud, render_point_cloud
+from sift_pyocl_jax import SiftConfig
+from sift_pyocl_jax.models.vo import VOConfig, vo_init, vo_step
+from sift_pyocl_jax.utils.testimage import blob_cloud, render_point_cloud
 
 
 def main():

@@ -1,7 +1,7 @@
 """Worker for the 2-process jax.distributed test (run as a subprocess).
 
 Exercises the REAL `jax.distributed.initialize` branch of
-parallel.multihost.initialize_multihost (VERDICT r1 #7: that branch had
+parallel.multihost.initialize_multihost (that branch had
 never run) plus a cross-process psum over the global BA mesh.
 """
 
@@ -15,7 +15,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(0, ".")
-    from sift_pyocl_tpu.parallel.multihost import (
+    from sift_pyocl_jax.parallel.multihost import (
         global_ba_mesh,
         initialize_multihost,
     )
@@ -43,12 +43,12 @@ def main():
     expect = float(np.arange(n_dev).sum())
     assert float(total) == expect, (float(total), expect)
 
-    # optional second leg (VERDICT r4 #2): the REAL DistributedBA camera-
+    # optional second leg: the REAL DistributedBA camera-
     # system psum across the process boundary, not just a global sum
     mode = sys.argv[4] if len(sys.argv) > 4 else "sum"
     if mode == "ba":
-        from sift_pyocl_tpu.sfm.distributed import DistributedBA
-        from sift_pyocl_tpu.sfm.synthetic import make_problem, perturb
+        from sift_pyocl_jax.sfm.distributed import DistributedBA
+        from sift_pyocl_jax.sfm.synthetic import make_problem, perturb
 
         K, gt, obs, _ = make_problem(
             n_cams=6, n_points=96, noise_px=0.3, seed=0)

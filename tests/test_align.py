@@ -3,8 +3,8 @@ round trip)."""
 
 import numpy as np
 
-from sift_pyocl_tpu import LinearAlign
-from sift_pyocl_tpu.utils.testimage import transformed_pair
+from sift_pyocl_jax import LinearAlign
+from sift_pyocl_jax.utils.testimage import transformed_pair
 
 
 def test_align_recovers_translation(small_cfg):
@@ -36,8 +36,8 @@ def test_align_double_check_and_relative():
     """double_check = symmetric matching; relative = compose across frames
     (reference: alignment.py kwargs)."""
     import numpy as np
-    from sift_pyocl_tpu import LinearAlign
-    from sift_pyocl_tpu.utils.testimage import synthetic_scene
+    from sift_pyocl_jax import LinearAlign
+    from sift_pyocl_jax.utils.testimage import synthetic_scene
 
     base = synthetic_scene((220, 220), n_blobs=35, seed=5)
     ref = base[10:170, 10:170]

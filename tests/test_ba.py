@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu.sfm.ba import BAObs, BAParams, residuals, run_ba
-from sift_pyocl_tpu.sfm.distributed import DistributedBA, merge_points, partition_problem
-from sift_pyocl_tpu.sfm.evaluate import ate_rmse, camera_centers
-from sift_pyocl_tpu.sfm.synthetic import make_problem, perturb
+from sift_pyocl_jax.sfm.ba import BAObs, BAParams, residuals, run_ba
+from sift_pyocl_jax.sfm.distributed import DistributedBA, merge_points, partition_problem
+from sift_pyocl_jax.sfm.evaluate import ate_rmse, camera_centers
+from sift_pyocl_jax.sfm.synthetic import make_problem, perturb
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def test_lm_blocked_onehot_matches_default():
     """cam_blocked + pt_onehot reductions == scatter-based lm_iteration on a
     VO-layout problem (obs stored in per-camera blocks, some zero-weight
     padding and clamped point ids)."""
-    from sift_pyocl_tpu.sfm.ba import lm_iteration
+    from sift_pyocl_jax.sfm.ba import lm_iteration
 
     rng = np.random.default_rng(3)
     C, PN, OBS_F = 4, 32, 48
@@ -126,7 +126,7 @@ def test_distributed_ba_matches_single(problem):
 
 def test_analytic_jacobians_match_jacfwd():
     """geometry.project_jacobians == jacfwd of the retract+project residual."""
-    from sift_pyocl_tpu.sfm.geometry import (
+    from sift_pyocl_jax.sfm.geometry import (
         pose_retract, project, project_jacobians, so3_exp,
     )
 

@@ -4,14 +4,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_pyocl_tpu import SiftConfig
-from sift_pyocl_tpu.models.vo import VOConfig, vo_init, vo_step
-from sift_pyocl_tpu.parallel.multihost import (
+from sift_pyocl_jax import SiftConfig
+from sift_pyocl_jax.models.vo import VOConfig, vo_init, vo_step
+from sift_pyocl_jax.parallel.multihost import (
     frames_x_ba_mesh, global_ba_mesh, initialize_multihost,
 )
-from sift_pyocl_tpu.sfm.ba import BAParams
-from sift_pyocl_tpu.sfm.checkpoint import load_ba, load_vo, save_ba, save_vo
-from sift_pyocl_tpu.utils.testimage import synthetic_scene
+from sift_pyocl_jax.sfm.ba import BAParams
+from sift_pyocl_jax.sfm.checkpoint import load_ba, load_vo, save_ba, save_vo
+from sift_pyocl_jax.utils.testimage import synthetic_scene
 
 
 def test_ba_checkpoint_roundtrip(tmp_path):
@@ -60,7 +60,7 @@ def test_multihost_helpers_single_process():
 def test_pipeline_deterministic():
     """Determinism test (SURVEY.md §5: replaces the reference's atomic-order
     nondeterminism tolerance — the functional pipeline must be bit-stable)."""
-    from sift_pyocl_tpu.models.sift import detect_and_describe
+    from sift_pyocl_jax.models.sift import detect_and_describe
 
     cfg = SiftConfig(kp_per_octave_cap=256)
     img = jnp.asarray(synthetic_scene((160, 128), n_blobs=25, seed=7))

@@ -1,6 +1,6 @@
 import math
 
-from sift_pyocl_tpu.config import SiftConfig, config_from_par, par
+from sift_pyocl_jax.config import SiftConfig, config_from_par, par
 
 
 def test_reference_defaults():
@@ -42,12 +42,12 @@ def test_par_bridge():
 
 
 def test_matchplan_padding_buckets():
-    """MatchPlan(size=) honors a stable compile footprint (VERDICT r1)."""
-    from sift_pyocl_tpu.models.match_align import MatchPlan
+    """MatchPlan(size=) honors a stable compile footprint."""
+    from sift_pyocl_jax.models.match_align import MatchPlan
 
     mp = MatchPlan(size=1024)
     import numpy as np
-    from sift_pyocl_tpu.oracle import KP_DTYPE
+    from sift_pyocl_jax.oracle import KP_DTYPE
 
     kp = np.zeros(300, KP_DTYPE)
     d, m, xy = mp._padded(kp, np.ones(300, bool))
@@ -61,11 +61,11 @@ def test_matchplan_padding_buckets():
 
 
 def test_siftplan_memory_precheck():
-    """Oversized plans raise at construction, not inside Mosaic
+    """Oversized plans raise at construction, not inside the compiler
     (reference: plan.py::_calc_memory)."""
     import pytest
 
-    from sift_pyocl_tpu import SiftPlan
+    from sift_pyocl_jax import SiftPlan
 
     with pytest.raises(MemoryError):
         SiftPlan(shape=(120000, 120000))
@@ -73,27 +73,65 @@ def test_siftplan_memory_precheck():
     assert 0 < p.calc_memory() < (1 << 30)
 
 
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform, self.device_kind, self._stats = platform, "fake", stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_memory_limit_from_device_stats_never_assumed(monkeypatch):
+    """The plan limit is the device's reported bytes_limit; a device that
+    reports none is an error, never a default size."""
+    import pytest
+
+    from sift_pyocl_jax import SiftPlan
+    from sift_pyocl_jax.models import sift as S
+
+    assert S.device_memory_limit(_FakeDevice("gpu", {"bytes_limit": 123})) == 123
+    with pytest.raises(RuntimeError):
+        S.device_memory_limit(_FakeDevice("gpu", {}))
+    with pytest.raises(RuntimeError):
+        S.device_memory_limit(_FakeDevice("gpu", None))
+    monkeypatch.setattr(S.jax, "devices",
+                        lambda: [_FakeDevice("gpu", {"bytes_limit": 1 << 20})])
+    with pytest.raises(MemoryError):
+        SiftPlan(shape=(512, 512))
+
+
+def test_memory_limit_on_cpu_is_host_ram():
+    import os
+
+    from sift_pyocl_jax.models.sift import device_memory_limit
+
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert device_memory_limit(_FakeDevice("cpu", None)) == ram > 0
+
+
 def test_max_ori_knob():
-    """cfg.max_ori threads through both kp backends consistently."""
+    """cfg.max_ori caps the orientations kept per keypoint exactly like
+    capping the oracle's per-keypoint peak list."""
+    import collections
+
     import jax.numpy as jnp
     import numpy as np
 
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.models.sift import detect_and_describe
-    from sift_pyocl_tpu.utils.testimage import synthetic_scene
+    from sift_pyocl_jax import SiftConfig
+    from sift_pyocl_jax.models.sift import detect_and_describe
+    from sift_pyocl_jax.oracle import sift_numpy
+    from sift_pyocl_jax.utils.testimage import synthetic_scene
 
     scene = synthetic_scene((128, 128), n_blobs=15, seed=0)
-    for mo in (2, 3):
-        bx = detect_and_describe(
-            jnp.asarray(scene),
-            SiftConfig(kp_per_octave_cap=256, kp_backend="xla",
-                       conv_backend="xla", max_ori=mo),
-        )
-        bp = detect_and_describe(
-            jnp.asarray(scene),
-            SiftConfig(kp_per_octave_cap=256, kp_backend="pallas",
-                       conv_backend="xla", pallas_interpret=True, max_ori=mo),
-        )
-        assert int(np.asarray(bx.valid).sum()) == int(
-            np.asarray(bp.valid).sum()
-        ) > 5
+    cfg = SiftConfig(kp_per_octave_cap=256)
+    ref = sift_numpy(scene, cfg)
+    per_kp = collections.Counter(
+        zip(ref["x"].round(3), ref["y"].round(3), ref["scale"].round(3)))
+    got = {}
+    for mo in (1, 2, 3):
+        b = detect_and_describe(jnp.asarray(scene),
+                                SiftConfig(kp_per_octave_cap=256, max_ori=mo))
+        got[mo] = int(np.asarray(b.valid).sum())
+        want = sum(min(n, mo) for n in per_kp.values())
+        assert abs(got[mo] - want) <= max(1, int(0.05 * want)), (mo, got, want)
+    assert 5 < got[1] < got[2] <= got[3]

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu import oracle as O
-from sift_pyocl_tpu.ops.detect import (
+from sift_pyocl_jax import oracle as O
+from sift_pyocl_jax.ops.detect import (
     compact_extrema,
     detect_octave,
     extrema_mask,
@@ -44,6 +44,25 @@ def test_compact_count_and_indices(octaves, small_cfg):
     for i in range(int(cands.valid.sum())):
         s, r, c = int(cands.s[i]), int(cands.r[i]), int(cands.c[i])
         assert mn[s - 1, r - bd, c - bd]
+
+
+@pytest.mark.parametrize("density,cap", [(0.002, 256), (0.02, 512),
+                                          (0.2, 300)])
+def test_compact_extrema_matches_nonzero(small_cfg, density, cap):
+    """compact_extrema == np.nonzero in exact row-major order, with the true
+    count kept when it overflows the capacity (the 0.2 case)."""
+    rng = np.random.default_rng(int(density * 1000))
+    mask = rng.uniform(size=(3, 40, 57)) < density
+    cands = compact_extrema(jnp.asarray(mask), small_cfg, cap)
+    s, r, c = np.nonzero(mask)
+    n = len(s)
+    k = min(n, cap)
+    assert int(cands.count) == n
+    assert np.asarray(cands.valid).sum() == k
+    bd = small_cfg.border_dist
+    np.testing.assert_array_equal(np.asarray(cands.s)[:k], s[:k] + 1)
+    np.testing.assert_array_equal(np.asarray(cands.r)[:k], r[:k] + bd)
+    np.testing.assert_array_equal(np.asarray(cands.c)[:k], c[:k] + bd)
 
 
 def test_refinement_parity(octaves, small_cfg):

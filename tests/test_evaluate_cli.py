@@ -1,20 +1,20 @@
 """End-to-end test of the ATE evaluation CLI: render a sequence to disk as
-PGM + TUM ground truth, run `python -m sift_pyocl_tpu.evaluate` logic, and
-check the reported ATE (VERDICT r1 #6 — one command, files on disk -> ATE)."""
+PGM + TUM ground truth, run `python -m sift_pyocl_jax.evaluate` logic, and
+check the reported ATE (one command, files on disk -> ATE)."""
 
 import json
 
 import numpy as np
 import pytest
 
-from sift_pyocl_tpu.evaluate import (
+from sift_pyocl_jax.evaluate import (
     load_gt_centers,
     main,
     probe_pgm_shape,
     save_sequence,
 )
-from sift_pyocl_tpu.sfm.evaluate import camera_centers
-from sift_pyocl_tpu.utils.render3d import render_sequence
+from sift_pyocl_jax.sfm.evaluate import camera_centers
+from sift_pyocl_jax.utils.render3d import render_sequence
 
 
 def test_gt_parsers(tmp_path):
@@ -58,7 +58,7 @@ def test_evaluate_cli_sfm_ate(tmp_path, capsys):
 
 
 def test_quat_from_R_roundtrip():
-    from sift_pyocl_tpu.evaluate import quat_from_R
+    from sift_pyocl_jax.evaluate import quat_from_R
 
     rng = np.random.default_rng(0)
     for _ in range(20):
@@ -79,7 +79,7 @@ def test_quat_from_R_roundtrip():
 
 def test_save_trajectory_tum_roundtrip(tmp_path):
     """--save-traj output parses as TUM gt with matching centers."""
-    from sift_pyocl_tpu.evaluate import save_trajectory_tum
+    from sift_pyocl_jax.evaluate import save_trajectory_tum
 
     rng = np.random.default_rng(1)
     n = 5

@@ -1,11 +1,11 @@
 """Fixture-ingestion path (reference: test/utilstest.py download harness —
-here disk-ingestion, VERDICT r1 #4).  The real-image parity test runs only
+here disk-ingestion).  The real-image parity test runs only
 when a user has dropped reference images into a fixtures dir."""
 
 import numpy as np
 import pytest
 
-from sift_pyocl_tpu.utils.fixtures import reference_test_image
+from sift_pyocl_jax.utils.fixtures import reference_test_image
 
 
 def test_fixture_roundtrip(tmp_path, monkeypatch):
@@ -32,9 +32,9 @@ def test_reference_image_parity_when_available():
                     "(set SIFT_PYOCL_FIXTURES)")
     from conftest import match_keypoint_sets
 
-    from sift_pyocl_tpu import SiftPlan
-    from sift_pyocl_tpu.oracle import sift_numpy
-    from sift_pyocl_tpu.config import SiftConfig
+    from sift_pyocl_jax import SiftPlan
+    from sift_pyocl_jax.oracle import sift_numpy
+    from sift_pyocl_jax.config import SiftConfig
 
     cfg = SiftConfig()
     ref = sift_numpy(img, cfg)

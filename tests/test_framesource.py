@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sift_pyocl_tpu.utils.framesource import FrameSource, _decode_numpy
+from sift_pyocl_jax.utils.framesource import FrameSource, _decode_numpy
 
 
 def _write_pgm(path, img, maxval=255):
@@ -80,7 +80,7 @@ def test_png_frames_via_pil(tmp_path):
     PIL = pytest.importorskip("PIL.Image")
     import numpy as np
 
-    from sift_pyocl_tpu.utils.framesource import FrameSource
+    from sift_pyocl_jax.utils.framesource import FrameSource
 
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 255, (32, 40)).astype("uint8") for _ in range(3)]

@@ -7,7 +7,7 @@ validation of SIFT numerics is the classic acceptance test: keypoints must
 REPEAT and descriptors must MATCH under known transforms of the same scene
 (Lowe 2004 §7; Mikolajczyk & Schmid 2005 protocol).
 
-Protocol (round 5 extends round 4 per VERDICT #5/#6): TWO scenes on a fixed
+Protocol: TWO scenes on a fixed
 256^2 canvas — the round-4 Gaussian-blob scene and a multi-frequency
 textured scene (noise octaves + hard edges + illumination gradient, much
 closer to photographic statistics; `utils/testimage.py::textured_scene`) —
@@ -33,9 +33,9 @@ while repeatability was 0.9).
 import numpy as np
 import pytest
 
-from sift_pyocl_tpu import MatchPlan, SiftPlan
-from sift_pyocl_tpu.ops.transform import affine_warp_jax
-from sift_pyocl_tpu.utils.testimage import synthetic_scene, textured_scene
+from sift_pyocl_jax import MatchPlan, SiftPlan
+from sift_pyocl_jax.ops.transform import affine_warp_jax
+from sift_pyocl_jax.utils.testimage import synthetic_scene, textured_scene
 
 SHAPE = (256, 256)
 TOL_PX = 2.0          # repeatability localization tolerance
@@ -210,7 +210,7 @@ def test_zoom_out_double_im_size_recovers(plan):
     (the reference's par.DoubleImSize remedy — adds the -1 octave) must
     keep recovering it: measured 0.707 -> 0.880 repeatability and
     39 -> 53 matches on the calibration scene (tools/diag_zoom.py)."""
-    from sift_pyocl_tpu import SiftConfig
+    from sift_pyocl_jax import SiftConfig
 
     img = synthetic_scene(SHAPE, n_blobs=90, seed=7)
     kp0 = plan.keypoints(img)

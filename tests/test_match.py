@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu import MatchPlan
-from sift_pyocl_tpu.oracle import KP_DTYPE, match_descriptors, sift_numpy
-from sift_pyocl_tpu.ops.match import match_descriptors_jax
-from sift_pyocl_tpu.utils.testimage import transformed_pair
+from sift_pyocl_jax import MatchPlan
+from sift_pyocl_jax.oracle import KP_DTYPE, match_descriptors, sift_numpy
+from sift_pyocl_jax.ops.match import match_descriptors_jax
+from sift_pyocl_jax.utils.testimage import transformed_pair
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +76,7 @@ def test_empty_inputs():
 
 
 def test_match_plan_translated_scene(small_cfg):
-    from sift_pyocl_tpu import SiftPlan
+    from sift_pyocl_jax import SiftPlan
 
     a, b = transformed_pair((128, 128), seed=1, dx=5, dy=-3)
     pa = SiftPlan(shape=a.shape, config=small_cfg)
@@ -89,11 +89,16 @@ def test_match_plan_translated_scene(small_cfg):
     assert abs(dx + 5) < 0.5 and abs(dy - 3) < 0.5
 
 
+def _assert_best2_equal(got, want, rows=slice(None)):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g)[rows], np.asarray(w)[rows])
+
+
 def test_pallas_best2_matches_xla(desc_pair):
-    """Fused Pallas best-2 kernel (interpret mode) == XLA _best2_l2:
+    """Triton best-2 kernel (interpret mode) == XLA _best2_l2 bit for bit:
     distances, argmin identity, and tie-breaking."""
-    from sift_pyocl_tpu.ops.match import _best2_l2
-    from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
     d1s, d2s, _perm = desc_pair
     rng = np.random.default_rng(3)
@@ -102,72 +107,81 @@ def test_pallas_best2_matches_xla(desc_pair):
     d2s = np.array(d2s)
     d2s[7] = d2s[3]
     a, b = jnp.asarray(d1s), jnp.asarray(d2s)
-    x1, x2, xi = _best2_l2(a, b, valid2)
-    for two_pass in (False, True):  # r4: fused 2-pass reduction variant
-        p1, p2, pi = best2_l2_pallas(a, b, valid2, interpret=True,
-                                     two_pass=two_pass)
-        np.testing.assert_allclose(np.asarray(p1), np.asarray(x1), rtol=1e-6)
-        np.testing.assert_allclose(
-            np.where(np.isinf(p2), 1e30, np.asarray(p2)),
-            np.where(np.isinf(np.asarray(x2)), 1e30, np.asarray(x2)),
-            rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+    _assert_best2_equal(best2_l2_triton(a, b, valid2, interpret=True),
+                        _best2_l2(a, b, valid2))
 
 
 def test_pallas_best2_degenerate():
     """Zero / one valid column rows keep XLA semantics through the kernel."""
-    from sift_pyocl_tpu.ops.match import _best2_l2
-    from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
     rng = np.random.default_rng(4)
     a = jnp.asarray(rng.integers(0, 255, (8, 128)), jnp.uint8)
     b = jnp.asarray(rng.integers(0, 255, (16, 128)), jnp.uint8)
     for nvalid in (0, 1):
         v = jnp.asarray(np.arange(16) < nvalid)
-        x1, x2, xi = _best2_l2(a, b, v)
-        p1, p2, pi = best2_l2_pallas(a, b, v, interpret=True)
-        np.testing.assert_array_equal(
-            np.isinf(np.asarray(p2)), np.isinf(np.asarray(x2)))
-        if nvalid:
-            np.testing.assert_allclose(np.asarray(p1), np.asarray(x1), rtol=1e-6)
-            np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+        _assert_best2_equal(best2_l2_triton(a, b, v, interpret=True),
+                            _best2_l2(a, b, v))
 
-def test_pallas_best2_valid1_skip(desc_pair):
-    """valid1 sub-tile skip: valid rows bit-identical to the full run,
-    rows in fully-invalid sub-tiles return zeros (callers gate on valid1)."""
-    from sift_pyocl_tpu.ops.pallas.matchk import SUB, best2_l2_pallas
+
+def test_pallas_best2_ratio_test_agrees(desc_pair):
+    """The kernel's (d1, d2, i1) put through the ratio test keep the same
+    matches, with the same partners, as match_descriptors_dense on the XLA
+    path."""
+    from sift_pyocl_jax.ops.match import match_descriptors_dense
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
     d1s, d2s, _perm = desc_pair
     rng = np.random.default_rng(5)
-    n1 = len(d1s)
+    valid1 = jnp.asarray(rng.uniform(size=len(d1s)) < 0.7)
     valid2 = jnp.asarray(rng.uniform(size=len(d2s)) < 0.8)
-    # valid rows only in the first sub-tile; everything later is skippable
-    valid1 = np.zeros(max(n1, 2 * SUB), bool)
-    valid1[: min(n1, 40)] = True
-    a = jnp.asarray(np.resize(np.array(d1s), (len(valid1), 128)))
-    b = jnp.asarray(d2s)
-    f1, f2, fi = best2_l2_pallas(a, b, valid2, interpret=True)
-    p1, p2, pi = best2_l2_pallas(a, b, valid2, jnp.asarray(valid1),
-                                 interpret=True)
-    sl = np.flatnonzero(valid1)
-    np.testing.assert_array_equal(np.asarray(p1)[sl], np.asarray(f1)[sl])
-    np.testing.assert_array_equal(np.asarray(pi)[sl], np.asarray(fi)[sl])
-    # a row beyond every valid sub-tile must come back zeroed
-    assert float(p1[-1]) == 0.0 and int(pi[-1]) == 0
+    a, b = jnp.asarray(d1s), jnp.asarray(d2s)
+    ratio_sq = 0.73 ** 2
+    keep, idx2, dist, _ = match_descriptors_dense(a, valid1, b, valid2,
+                                                  ratio_sq=ratio_sq)
+    k1, k2, ki = (np.asarray(x) for x in
+                  best2_l2_triton(a, b, valid2, interpret=True))
+    kkeep = np.asarray(valid1) & np.isfinite(k2) & (k2 > 0) & (k1 < ratio_sq * k2)
+    keep = np.asarray(keep)
+    assert keep.sum() > 10
+    np.testing.assert_array_equal(kkeep, keep)
+    np.testing.assert_array_equal(ki[keep], np.asarray(idx2)[keep])
+    np.testing.assert_array_equal(k1[keep], np.asarray(dist)[keep])
 
 
 def test_pallas_best2_bf16_u8_exact(desc_pair):
-    """u8 descriptors through the bf16 MXU path == the f32 XLA reduction
-    bit-for-bit (u8 values, products and 128-term sums are all exact)."""
-    from sift_pyocl_tpu.ops.match import _best2_l2
-    from sift_pyocl_tpu.ops.pallas.matchk import best2_l2_pallas
+    """Full-range u8 descriptors through the kernel's bf16 tensor-core dot ==
+    the f32 XLA reduction bit-for-bit (u8 values, products and 128-term sums
+    are all exact)."""
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
     rng = np.random.default_rng(6)
     a = jnp.asarray(rng.integers(0, 256, (300, 128)), jnp.uint8)
     b = jnp.asarray(rng.integers(0, 256, (200, 128)), jnp.uint8)
     v2 = jnp.asarray(rng.uniform(size=200) < 0.9)
-    x1, x2, xi = _best2_l2(a, b, v2)
-    p1, p2, pi = best2_l2_pallas(a, b, v2, interpret=True)
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(x1))
-    np.testing.assert_array_equal(np.asarray(p2), np.asarray(x2))
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+    _assert_best2_equal(best2_l2_triton(a, b, v2, interpret=True),
+                        _best2_l2(a, b, v2))
+
+
+def _lowered_text(dtype, platform):
+    from sift_pyocl_jax.ops.match import match_descriptors_dense
+
+    d = jnp.zeros((64, 128), dtype)
+    v = jnp.ones(64, bool)
+    return match_descriptors_dense.trace(d, v, d, v).lower(
+        lowering_platforms=(platform,)).as_text()
+
+
+def test_matcher_choice_u8_on_gpu_uses_kernel():
+    """u8 descriptors lowered for a CUDA GPU go through the Triton kernel."""
+    assert "best2_l2" in _lowered_text(jnp.uint8, "cuda")
+
+
+@pytest.mark.parametrize("dtype,platform", [(jnp.float32, "cuda"),
+                                            (jnp.uint8, "cpu")])
+def test_matcher_choice_f32_or_cpu_uses_xla(dtype, platform):
+    """f32 descriptors, or any lowering for the CPU, take the XLA reduction."""
+    txt = _lowered_text(dtype, platform)
+    assert "best2_l2" not in txt and "triton" not in txt

@@ -1,4 +1,4 @@
-"""2-process jax.distributed smoke test over localhost DCN (VERDICT r1 #7).
+"""2-process jax.distributed smoke test over localhost DCN.
 
 Spawns two CPU-backend subprocesses that call the real
 `initialize_multihost(num_processes=2, ...)` path and run a cross-process
@@ -60,7 +60,7 @@ def test_two_process_distributed_init():
 
 @pytest.mark.slow
 def test_two_process_distributed_ba():
-    """VERDICT r4 #2: DistributedBA's psum'd camera reduction across a REAL
+    """DistributedBA's psum'd camera reduction across a REAL
     process boundary (2 processes x 2 CPU devices over localhost DCN), with
     the final cost checked against a single-process run of the SAME 4-shard
     partition — multi-host correctness of the BA collective pattern, not
@@ -71,8 +71,8 @@ def test_two_process_distributed_ba():
     import numpy as np
     from jax.sharding import Mesh
 
-    from sift_pyocl_tpu.sfm.distributed import DistributedBA
-    from sift_pyocl_tpu.sfm.synthetic import make_problem, perturb
+    from sift_pyocl_jax.sfm.distributed import DistributedBA
+    from sift_pyocl_jax.sfm.synthetic import make_problem, perturb
 
     # reference: single-process, 4 local devices -> identical partition to
     # the workers' 2x2-device global mesh (partition_problem is a pure

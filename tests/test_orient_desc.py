@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu import oracle as O
-from sift_pyocl_tpu.ops.detect import compact_extrema, extrema_mask, refine_candidates
-from sift_pyocl_tpu.ops.orient_desc import (
+from sift_pyocl_jax import oracle as O
+from sift_pyocl_jax.ops.detect import compact_extrema, extrema_mask, refine_candidates
+from sift_pyocl_jax.ops.orient_desc import (
     assign_orientations,
     compute_descriptors,
     gradient_planes,

@@ -1,92 +1,24 @@
-"""Parity tests for the Pallas TPU kernels (interpret mode on CPU).
+"""Pallas kernel (interpret mode on the CPU) and matmul-resampling tests.
 
-Mirrors the reference's kernel-vs-oracle strategy (SURVEY.md §4): every Pallas
-kernel is checked against the plain-XLA/NumPy implementation of the same
-stage.  On CPU the kernels run under the Pallas interpreter; the same code
-compiles with Mosaic on a real TPU (exercised by bench.py / the driver).
+The fused best-2 matcher (ops/pallas/matchk.py, Triton route) is checked
+bit for bit against the plain XLA reduction ops.match._best2_l2 at shapes
+that stress its blocking; the compiled kernel is checked on the card by
+tests/test_gpu.py and chip_smoke.py.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu.ops.pallas.conv import separable_blur_pallas, blur_taps
-from sift_pyocl_tpu.ops.pyramid import blur_jax
 
-
-@pytest.mark.parametrize("shape", [(64, 96), (200, 300)])
-@pytest.mark.parametrize("sigma", [1.226, 1.6, 3.09])
-def test_separable_blur_pallas_matches_xla(shape, sigma):
-    rng = np.random.default_rng(0)
-    img = jnp.asarray(rng.uniform(0, 255, shape).astype(np.float32))
-    got = separable_blur_pallas(
-        img, blur_taps(sigma), tile_rows=64, tile_cols=128, interpret=True
-    )
-    want = blur_jax(img, sigma)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
-
-
-def test_blur_router_pallas_matches_oracle_numerics():
-    from sift_pyocl_tpu import oracle
-
-    rng = np.random.default_rng(1)
-    img = rng.uniform(0, 255, (96, 128)).astype(np.float32)
-    got = separable_blur_pallas(
-        jnp.asarray(img), blur_taps(1.6), tile_rows=64, tile_cols=128,
-        interpret=True,
-    )
-    want = oracle.blur(img, 1.6)
-    np.testing.assert_allclose(np.asarray(got), want, atol=2e-3)
-
-
-def test_compact_mask_pallas_interpret():
-    from sift_pyocl_tpu.ops.pallas.compact import compact_mask_pallas
-
-    rng = np.random.default_rng(2)
-    mask = rng.uniform(size=(3, 60, 124)) > 0.995
-    idx, written, total = compact_mask_pallas(
-        jnp.asarray(mask), cap=256, interpret=True
-    )
-    want = np.nonzero(mask.reshape(-1))[0]
-    got = np.asarray(idx)[: int(written)]
-    assert int(total) == len(want)
-    assert np.array_equal(got, want[: int(written)])  # exact nonzero order
-
-
-def test_refine_pallas_interpret_matches_xla():
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
-    from sift_pyocl_tpu.ops.detect import (
-        extrema_mask, compact_extrema, refine_candidates,
-    )
-    from sift_pyocl_tpu.ops.pallas.refine import pad_dogs, refine_pallas
-    from sift_pyocl_tpu.utils.testimage import synthetic_scene
-
-    cfg = SiftConfig()
-    img = jnp.asarray(synthetic_scene((96, 128), n_blobs=12, seed=3))
-    dogs = build_scale_space_jax(img, cfg)[0][1]
-    S, H, W = dogs.shape
-    mask = extrema_mask(dogs, cfg, 0)
-    cands = compact_extrema(mask, cfg, 64)
-    ref = refine_candidates(dogs, cands, cfg)
-    fs, fr, fc, peak, acc = refine_pallas(
-        pad_dogs(dogs), cands.s, cands.r, cands.c, cands.valid,
-        H=H, W=W, bd=cfg.border_dist, peak_thresh=cfg.peak_thresh,
-        interpret=True,
-    )
-    m = np.asarray(cands.valid)
-    assert np.array_equal(np.asarray(acc)[m] > 0, np.asarray(ref.valid)[m])
-    am = m & (np.asarray(acc) > 0)
-    for a, b in [(fs, ref.fs), (fr, ref.fr), (fc, ref.fc), (peak, ref.peak)]:
-        if am.sum():
-            np.testing.assert_allclose(
-                np.asarray(a)[am], np.asarray(b)[am], atol=1e-5
-            )
+def _assert_best2_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 def test_upscale2_matmul_matches_oracle():
-    from sift_pyocl_tpu import oracle
-    from sift_pyocl_tpu.ops.pyramid import upscale2_jax
+    from sift_pyocl_jax import oracle
+    from sift_pyocl_jax.ops.pyramid import upscale2_jax
 
     rng = np.random.default_rng(4)
     img = rng.uniform(0, 255, (37, 53)).astype(np.float32)
@@ -95,340 +27,57 @@ def test_upscale2_matmul_matches_oracle():
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
-# ---------------------------------------------------------------------------
-# Orientation / descriptor window kernels (ADVICE r1: the two largest Pallas
-# kernels had no interpret-mode parity tests) and the end-to-end pallas path.
-# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n1,n2", [(1, 1), (65, 129), (130, 300), (40, 8300)])
+def test_triton_best2_ragged_shapes(n1, n2):
+    """Shapes that are not multiples of the kernel's blocks, including a
+    set 2 wider than 8,192 columns (no resident-panel bound)."""
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
+
+    rng = np.random.default_rng(n1 * 7 + n2)
+    a = jnp.asarray(rng.integers(0, 120, (n1, 128)), jnp.uint8)
+    b = jnp.asarray(rng.integers(0, 120, (n2, 128)), jnp.uint8)
+    v2 = jnp.asarray(rng.uniform(size=n2) < 0.9)
+    _assert_best2_equal(best2_l2_triton(a, b, v2, interpret=True),
+                        _best2_l2(a, b, v2))
 
 
-def _octave_with_gradients(scene, cfg, octave=1):
-    # octave 1: the synthetic blob scenes put most extrema there (octave 0
-    # has only 1-2 at these blob sizes)
-    from sift_pyocl_tpu.ops.detect import detect_octave
-    from sift_pyocl_tpu.ops.orient_desc import gradient_planes
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
+def test_triton_best2_all_invalid_set2():
+    """No valid column: d1 = d2 = +inf and argbest 0, as in _best2_l2."""
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
-    img = jnp.asarray(scene)
-    blurs, dogs = build_scale_space_jax(img, cfg)[octave]
-    kps = detect_octave(dogs, cfg, octave, 64)
-    mags, oris = gradient_planes(blurs, cfg)
-    return kps, mags, oris
-
-
-def test_orientation_hist_pallas_interpret_matches_xla(scene128, small_cfg):
-    """assign_orientations_pallas (dense slots) vs the XLA path: identical
-    sets of (s, r, c, angle) for valid keypoints."""
-    from sift_pyocl_tpu.ops.orient_desc import (
-        assign_orientations,
-        assign_orientations_pallas,
-    )
-    from sift_pyocl_tpu.ops.pallas.window import pad_grad_planes
-
-    cfg = small_cfg
-    kps, mags, oris = _octave_with_gradients(scene128, cfg)
-    assert int(np.asarray(kps.valid).sum()) > 5
-    ox = assign_orientations(mags, oris, kps, cfg, dcap=96)
-    mag_p, ori_p = pad_grad_planes(mags, oris)
-    op = assign_orientations_pallas(mag_p, ori_p, kps, cfg, interpret=True)
-    assert int(op.count) == int(ox.count)
-
-    def rows(o):
-        m = np.asarray(o.valid)
-        r = np.stack(
-            [
-                np.asarray(o.s_int)[m].astype(np.float32),
-                np.asarray(o.fr)[m],
-                np.asarray(o.fc)[m],
-                np.asarray(o.angle)[m],
-            ],
-            axis=1,
-        )
-        return r[np.lexsort(r.T[::-1])]
-
-    np.testing.assert_allclose(rows(op), rows(ox), atol=1e-4)
+    rng = np.random.default_rng(8)
+    a = jnp.asarray(rng.integers(0, 255, (70, 128)), jnp.uint8)
+    b = jnp.asarray(rng.integers(0, 255, (300, 128)), jnp.uint8)
+    v2 = jnp.zeros(300, bool)
+    got = best2_l2_triton(a, b, v2, interpret=True)
+    _assert_best2_equal(got, _best2_l2(a, b, v2))
+    assert np.isinf(np.asarray(got[0])).all()
 
 
-def test_descriptor_hist_pallas_interpret_matches_xla(scene128, small_cfg):
-    """compute_descriptors_pallas vs the XLA separable-matmul formulation on
-    IDENTICAL oriented keypoints (u8 descriptors within 1 count)."""
-    from sift_pyocl_tpu.ops.orient_desc import (
-        assign_orientations,
-        compute_descriptors,
-        compute_descriptors_pallas,
-    )
-    from sift_pyocl_tpu.ops.pallas.window import pad_grad_planes
+def test_triton_best2_duplicate_ties_across_tiles():
+    """One descriptor repeated in several column tiles: argbest is its first
+    occurrence, the second best equals the best (another copy remains)."""
+    from sift_pyocl_jax.ops.match import _best2_l2
+    from sift_pyocl_jax.ops.pallas.matchk import BLOCK_N, best2_l2_triton
 
-    cfg = small_cfg
-    kps, mags, oris = _octave_with_gradients(scene128, cfg)
-    okps = assign_orientations(mags, oris, kps, cfg, dcap=96)
-    n = int(np.asarray(okps.valid).sum())
-    assert n > 5
-    mag_p, ori_p = pad_grad_planes(mags, oris)
-    dp = np.asarray(compute_descriptors_pallas(mag_p, ori_p, okps, cfg,
-                                               interpret=True))
-    dx = np.asarray(compute_descriptors(mags, oris, okps, cfg))
-    m = np.asarray(okps.valid)
-    diff = np.abs(dp[m].astype(int) - dx[m].astype(int))
-    assert diff.max() <= 1, f"max u8 diff {diff.max()}"
-    assert diff.mean() < 0.05
+    rng = np.random.default_rng(9)
+    b = rng.integers(0, 200, (3 * BLOCK_N + 5, 128)).astype(np.uint8)
+    dup = (5, BLOCK_N + 1, 2 * BLOCK_N + 7, 3 * BLOCK_N + 4)
+    b[list(dup)] = b[dup[0]]
+    a = np.concatenate([b[[dup[0]]], rng.integers(0, 200, (20, 128))])
+    v2 = np.ones(len(b), bool)
+    v2[dup[0]] = False                      # first copy invalid: next one wins
+    a, b, v2 = jnp.asarray(a, jnp.uint8), jnp.asarray(b), jnp.asarray(v2)
+    got = best2_l2_triton(a, b, v2, interpret=True)
+    _assert_best2_equal(got, _best2_l2(a, b, v2))
+    assert int(got[2][0]) == dup[1] and float(got[0][0]) == float(got[1][0]) == 0.0
 
 
-def test_detect_and_describe_pallas_e2e_matches_xla(scene160):
-    """The full production path (conv + detect + orient + descriptor all in
-    Pallas, interpret mode) against the pure-XLA path — set-based keypoint
-    parity (ADVICE r1: the end-to-end pallas path was never cross-checked)."""
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.models.sift import detect_and_describe
-    from sift_pyocl_tpu.oracle import KP_DTYPE
+def test_triton_best2_rejects_f32():
+    from sift_pyocl_jax.ops.pallas.matchk import best2_l2_triton
 
-    from conftest import match_keypoint_sets
-
-    def run(**kw):
-        cfg = SiftConfig(kp_per_octave_cap=256, **kw)
-        buf = detect_and_describe(jnp.asarray(scene160), cfg)
-        m = np.asarray(buf.valid)
-        out = np.zeros(int(m.sum()), dtype=KP_DTYPE)
-        out["x"] = np.asarray(buf.x)[m]
-        out["y"] = np.asarray(buf.y)[m]
-        out["scale"] = np.asarray(buf.scale)[m]
-        out["angle"] = np.asarray(buf.angle)[m]
-        out["desc"] = np.asarray(buf.desc)[m]
-        return out
-
-    kx = run(kp_backend="xla", conv_backend="xla")
-    kp = run(kp_backend="pallas", conv_backend="pallas", pallas_interpret=True)
-    assert len(kx) > 10
-    assert abs(len(kp) - len(kx)) <= max(2, int(0.05 * len(kx)))
-    hits, desc_l1 = match_keypoint_sets(kx, kp)
-    assert hits >= 0.95 * len(kx), f"{hits}/{len(kx)}"
-    assert desc_l1 < 0.2
-
-
-def test_fused_orient_desc_pallas_interpret_matches_xla(scene128, small_cfg):
-    """The fused single-kernel orientation+descriptor path (one window DMA
-    pair per keypoint, in-kernel smoothing/peak tail) vs the XLA path:
-    identical angle sets and bit-identical u8 descriptors."""
-    from sift_pyocl_tpu.ops.orient_desc import (
-        assign_orientations,
-        compute_descriptors,
-        orient_and_describe_fused_pallas,
-    )
-    from sift_pyocl_tpu.ops.pallas.window import pad_grad_planes
-
-    cfg = small_cfg
-    kps, mags, oris = _octave_with_gradients(scene128, cfg)
-    okx = assign_orientations(mags, oris, kps, cfg, dcap=96)
-    dx = np.asarray(compute_descriptors(mags, oris, okx, cfg))
-    mag_p, ori_p = pad_grad_planes(mags, oris)
-    okf, df = orient_and_describe_fused_pallas(
-        mag_p, ori_p, kps, cfg, interpret=True
-    )
-    assert int(okf.count) == int(okx.count) > 5
-
-    def rows(o, d):
-        m = np.asarray(o.valid)
-        r = np.stack(
-            [
-                np.asarray(o.s_int)[m].astype(np.float32),
-                np.asarray(o.fr)[m],
-                np.asarray(o.fc)[m],
-                np.asarray(o.angle)[m],
-            ],
-            axis=1,
-        )
-        order = np.lexsort(r.T[::-1])
-        return r[order], np.asarray(d)[m][order]
-
-    rx, descx = rows(okx, dx)
-    rf, descf = rows(okf, np.asarray(df))
-    np.testing.assert_allclose(rf, rx, atol=1e-4)
-    diff = np.abs(descx.astype(int) - descf.astype(int))
-    assert diff.max() <= 1 and diff.mean() < 0.01
-
-
-def test_kp_multi_launch_variants_agree(scene160):
-    """Both pallas launch strategies (batched multi-octave kernels vs
-    per-octave launches) must produce identical keypoint sets."""
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.models.sift import detect_and_describe
-    from sift_pyocl_tpu.oracle import KP_DTYPE
-
-    from conftest import match_keypoint_sets
-
-    def run(multi, grad="xla"):
-        cfg = SiftConfig(kp_per_octave_cap=256, kp_backend="pallas",
-                         conv_backend="xla", pallas_interpret=True,
-                         kp_multi_launch=multi, grad_backend=grad)
-        buf = detect_and_describe(jnp.asarray(scene160), cfg)
-        m = np.asarray(buf.valid)
-        out = np.zeros(int(m.sum()), dtype=KP_DTYPE)
-        for f in ("x", "y", "scale", "angle", "desc"):
-            out[f] = np.asarray(getattr(buf, f))[m]
-        return out
-
-    a = run(True)
-    b = run(False)
-    assert len(a) == len(b) > 10
-    hits, desc_l1 = match_keypoint_sets(a, b)
-    assert hits == len(a)
-    # same XLA gradients feed both strategies -> bit-identical descriptors
-    assert desc_l1 == 0.0
-    # the fused gradient+pad kernel differs from the XLA gradients by f32
-    # fusion ulps only; descriptors must still match at quantization level
-    c = run(True, grad="pallas")
-    assert len(c) == len(a)
-    hits, desc_l1 = match_keypoint_sets(a, c)
-    assert hits == len(a)
-    assert desc_l1 < 0.05
-
-
-def test_grad_atlas_kernel_parity(scene160):
-    """grad_atlas_pallas (interpret) == gradient_planes + build_grad_atlas
-    content-wise (up to f32 fusion ulps) in every octave's padded region,
-    zeros elsewhere."""
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.ops.orient_desc import gradient_planes
-    from sift_pyocl_tpu.ops.pallas.gradpad import atlas_geometry, grad_atlas_pallas
-    from sift_pyocl_tpu.ops.pallas.window import PAD_C, PAD_R
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
-
-    cfg = SiftConfig(conv_backend="xla")
-    octs = build_scale_space_jax(jnp.asarray(scene160), cfg)
-    blur_list = [b for b, _ in octs]
-    mag_a, ori_a, row_starts = grad_atlas_pallas(
-        blur_list, cfg.scales, interpret=True)
-    mag_np = np.asarray(mag_a)
-    ori_np = np.asarray(ori_a)
-    covered = np.zeros(mag_np.shape[1], dtype=bool)
-    for o, b in enumerate(blur_list):
-        mags, oris = gradient_planes(b, cfg)
-        S, H, W = mags.shape
-        r0 = row_starts[o] + PAD_R
-        # XLA fuses the two formulations differently (fma order), so allow
-        # 1-2 f32 ulps on mag and ori
-        np.testing.assert_allclose(
-            mag_np[:, r0 : r0 + H, PAD_C : PAD_C + W], np.asarray(mags),
-            rtol=3e-7, atol=3e-6)
-        np.testing.assert_allclose(
-            ori_np[:, r0 : r0 + H, PAD_C : PAD_C + W], np.asarray(oris),
-            rtol=3e-7, atol=3e-6)
-        # the block outside the image must be exactly zero (the window
-        # kernels rely on zero magnitude out-of-image)
-        blk = mag_np[:, row_starts[o] : r0 + H + PAD_R].copy()
-        blk[:, PAD_R : PAD_R + H, PAD_C : PAD_C + W] = 0.0
-        assert np.abs(blk).max() == 0.0
-        covered[row_starts[o] : r0 + H + PAD_R] = True
-    # inter-block slack rows (TR rounding) are zero too
-    assert np.abs(mag_np[:, ~covered]).max() == 0.0
-
-
-def test_extrema_mask_atlas_pallas_matches_xla(scene160):
-    """One-launch atlas extrema-mask kernel vs ops.detect.extrema_mask:
-    exact per-octave equality (the kernel is comparisons only)."""
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.ops.detect import extrema_mask
-    from sift_pyocl_tpu.ops.pallas.maskk import extrema_masks_atlas_pallas
-    from sift_pyocl_tpu.ops.pallas.refine import build_dog_atlas
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
-
-    cfg = SiftConfig()
-    octs = build_scale_space_jax(jnp.asarray(scene160), cfg)
-    dogs = [d for _, d in octs]
-    atlas, rs = build_dog_atlas(dogs)
-    got = extrema_masks_atlas_pallas(
-        atlas, rs, [d.shape for d in dogs], cfg, interpret=True
-    )
-    total = 0
-    for o, d in enumerate(dogs):
-        want = np.asarray(extrema_mask(d, cfg, o))
-        np.testing.assert_array_equal(np.asarray(got[o]), want,
-                                      err_msg=f"octave {o}")
-        total += want.sum()
-    assert total > 5  # the scene must actually produce extrema
-
-
-def test_compact_masks_multi_extract_modes():
-    """Multi-octave compaction: both extraction formulations ("sum" full-tile
-    masked reductions, "rowmm" row-targeted MXU pulls) must emit exact
-    np.nonzero order per octave."""
-    from sift_pyocl_tpu.ops.pallas.compact import compact_masks_multi
-
-    rng = np.random.default_rng(5)
-    masks = [rng.random((3, h, w)) < p for (h, w), p in
-             [((100, 150), 0.001), ((50, 75), 0.004)]]
-    caps = [256, 128]
-    for mode in ("sum", "rowmm"):
-        idx, wr, tot = compact_masks_multi(
-            [jnp.asarray(m) for m in masks], caps, interpret=True,
-            extract_mode=mode,
-        )
-        idx, wr, tot = np.asarray(idx), np.asarray(wr), np.asarray(tot)
-        off = 0
-        for o, m in enumerate(masks):
-            ref = np.nonzero(m.reshape(-1))[0]
-            assert tot[o] == len(ref), (mode, o)
-            assert wr[o] == min(len(ref), caps[o]), (mode, o)
-            assert np.array_equal(idx[off:off + wr[o]], ref[:wr[o]]), (mode, o)
-            off += caps[o]
-
-
-def test_fused_orient_desc_colsum_matches_scalar():
-    """reduce_mode="colsum" (lane-reductions + one MXU matmul) vs "scalar"
-    (per-bin full-window scalar sums): same ok flags/angles, raw descriptors
-    within reassociation ulps."""
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.models.sift import octave_capacities
-    from sift_pyocl_tpu.ops.detect import detect_octave_pallas
-    from sift_pyocl_tpu.ops.orient_desc import (_desc_window_size,
-                                                gradient_planes)
-    from sift_pyocl_tpu.ops.pallas.window import (orient_desc_fused_pallas,
-                                                  pad_grad_planes)
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
-    from sift_pyocl_tpu.utils.testimage import synthetic_scene
-
-    cfg = SiftConfig()
-    img = jnp.asarray(synthetic_scene((160, 160), n_blobs=30, seed=3))
-    blurs, dogs = build_scale_space_jax(img, cfg)[0]
-    cap = octave_capacities((160, 160), cfg)[0][0]
-    kps, _ = detect_octave_pallas(dogs, cfg, 0, cap, interpret=True)
-    mag_p, ori_p = pad_grad_planes(*gradient_planes(blurs, cfg))
-    sigma = cfg.init_sigma * 2.0 ** (kps.fs / cfg.scales)
-    win = _desc_window_size(cfg)
-    out = {}
-    for mode in ("scalar", "colsum"):
-        out[mode] = orient_desc_fused_pallas(
-            mag_p, ori_p, kps.s_int, kps.fr, kps.fc, sigma, kps.valid,
-            win=win, max_ori=cfg.max_ori, interpret=True, reduce_mode=mode,
-        )
-    a0, k0, r0 = map(np.asarray, out["scalar"])
-    a1, k1, r1 = map(np.asarray, out["colsum"])
-    assert k0.sum() > 0 and np.array_equal(k0, k1)
-    np.testing.assert_allclose(a1[k0], a0[k0], atol=1e-5)
-    scale = np.abs(r0).max() + 1e-9
-    np.testing.assert_allclose(r1[k0] / scale, r0[k0] / scale, atol=1e-5)
-
-
-def test_fused_ladder_masks_match_xla(scene160):
-    """Fused in-ladder extrema masks (mask_backend="fused": computed inside
-    ladder0/ladder while the DoG planes are VMEM-resident) vs
-    ops.detect.extrema_mask: exact per-octave equality, all octaves."""
-    import dataclasses
-
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.ops.detect import extrema_mask
-    from sift_pyocl_tpu.ops.pyramid import build_scale_space_and_masks_jax
-
-    cfg = dataclasses.replace(
-        SiftConfig(), conv_backend="pallas", pallas_interpret=True,
-        mask_backend="fused",
-    )
-    octs, masks = build_scale_space_and_masks_jax(jnp.asarray(scene160), cfg)
-    assert masks is not None and all(m is not None for m in masks)
-    total = 0
-    for o, (_, d) in enumerate(octs):
-        want = np.asarray(extrema_mask(d, cfg, o))
-        np.testing.assert_array_equal(
-            np.asarray(masks[o]) != 0, want, err_msg=f"octave {o}"
-        )
-        total += want.sum()
-    assert total > 5  # the scene must actually produce extrema
+    x = jnp.zeros((4, 128), jnp.float32)
+    with pytest.raises(TypeError):
+        best2_l2_triton(x, x, jnp.ones(4, bool), interpret=True)

@@ -5,15 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sift_pyocl_tpu import SiftConfig
-from sift_pyocl_tpu.models.sift import detect_and_describe
-from sift_pyocl_tpu.parallel.pipeline_octaves import TwoStagePipeline
-from sift_pyocl_tpu.utils.testimage import synthetic_scene
+from sift_pyocl_jax import SiftConfig
+from sift_pyocl_jax.models.sift import detect_and_describe
+from sift_pyocl_jax.parallel.pipeline_octaves import TwoStagePipeline
+from sift_pyocl_jax.utils.testimage import synthetic_scene
 
 
 def test_two_stage_pipeline_matches_single_device():
-    cfg = SiftConfig(kp_per_octave_cap=256, conv_backend="xla",
-                     kp_backend="xla")
+    cfg = SiftConfig(kp_per_octave_cap=256)
     frames = [
         synthetic_scene((128, 128), n_blobs=12, seed=s) for s in range(3)
     ]

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_pyocl_tpu.sfm import geometry as G
-from sift_pyocl_tpu.sfm.pnp import pnp_refine, ransac_pnp
-from sift_pyocl_tpu.sfm.posegraph import PoseGraph, optimize_pose_graph, relative_pose
-from sift_pyocl_tpu.sfm.synthetic import make_problem, perturb
-from sift_pyocl_tpu.sfm.evaluate import ate_rmse, camera_centers
+from sift_pyocl_jax.sfm import geometry as G
+from sift_pyocl_jax.sfm.pnp import pnp_refine, ransac_pnp
+from sift_pyocl_jax.sfm.posegraph import PoseGraph, optimize_pose_graph, relative_pose
+from sift_pyocl_jax.sfm.synthetic import make_problem, perturb
+from sift_pyocl_jax.sfm.evaluate import ate_rmse, camera_centers
 
 
 def _pnp_scene(seed=0, n=80, noise=0.3):

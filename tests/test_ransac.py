@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_pyocl_tpu.sfm import geometry as G
-from sift_pyocl_tpu.sfm.ransac import ransac_homography, ransac_essential_normalized
-from sift_pyocl_tpu.sfm.twoview import initialize_two_view
+from sift_pyocl_jax.sfm import geometry as G
+from sift_pyocl_jax.sfm.ransac import ransac_homography, ransac_essential_normalized
+from sift_pyocl_jax.sfm.twoview import initialize_two_view
 
 
 def _homography_scene(n=120, outlier_frac=0.35, seed=0):
@@ -73,7 +73,7 @@ def test_ransac_essential_with_outliers():
 
 
 def test_ransac_affine_with_outliers():
-    from sift_pyocl_tpu.sfm.ransac import ransac_affine
+    from sift_pyocl_jax.sfm.ransac import ransac_affine
 
     rng = np.random.default_rng(2)
     M_gt = np.array([[0.98, 0.05], [-0.04, 1.02]])

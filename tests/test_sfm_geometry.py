@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_pyocl_tpu.sfm import geometry as G
+from sift_pyocl_jax.sfm import geometry as G
 
 
 def test_so3_exp_log_roundtrip():

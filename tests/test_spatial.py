@@ -7,14 +7,14 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from sift_pyocl_tpu import SiftConfig
-from sift_pyocl_tpu.ops.pyramid import build_scale_space_jax
-from sift_pyocl_tpu.parallel.spatial import sharded_scale_space
-from sift_pyocl_tpu.utils.testimage import synthetic_scene
+from sift_pyocl_jax import SiftConfig
+from sift_pyocl_jax.ops.pyramid import build_scale_space_jax
+from sift_pyocl_jax.parallel.spatial import sharded_scale_space
+from sift_pyocl_jax.utils.testimage import synthetic_scene
 
 
 def test_sharded_scale_space_matches_single_device():
-    cfg = SiftConfig(conv_backend="xla", kp_per_octave_cap=256)
+    cfg = SiftConfig(kp_per_octave_cap=256)
     img = jnp.asarray(synthetic_scene((256, 192), n_blobs=25, seed=2))
     devs = np.array(jax.devices()[:4])
     mesh = Mesh(devs, ("rows",))
@@ -31,7 +31,7 @@ def test_sharded_scale_space_matches_single_device():
 
 
 def test_sharded_scale_space_is_actually_sharded():
-    cfg = SiftConfig(conv_backend="xla", kp_per_octave_cap=256)
+    cfg = SiftConfig(kp_per_octave_cap=256)
     img = jnp.asarray(synthetic_scene((256, 192), n_blobs=10, seed=0))
     mesh = Mesh(np.array(jax.devices()[:4]), ("rows",))
     blurs, _ = sharded_scale_space(img, cfg, mesh, n_oct=1)[0]

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy import ndimage
 
-from sift_pyocl_tpu import oracle as O
-from sift_pyocl_tpu.ops.transform import affine_warp_jax
+from sift_pyocl_jax import oracle as O
+from sift_pyocl_jax.ops.transform import affine_warp_jax
 
 
 def test_warp_identity(scene128):

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_pyocl_tpu import SiftConfig
-from sift_pyocl_tpu.models.sift import detect_and_describe
-from sift_pyocl_tpu.parallel.video import (
+from sift_pyocl_jax import SiftConfig
+from sift_pyocl_jax.models.sift import detect_and_describe
+from sift_pyocl_jax.parallel.video import (
     VideoSiftFrontend, batched_sift, make_frames_mesh,
 )
-from sift_pyocl_tpu.utils.testimage import synthetic_scene
+from sift_pyocl_jax.utils.testimage import synthetic_scene
 
 
 def test_sharded_video_frontend_matches_single():

@@ -1,4 +1,4 @@
-"""VO long-run stability: 200-frame synthetic trajectory (VERDICT r3 #5).
+"""VO long-run stability: 200-frame synthetic trajectory.
 
 Catches the failure classes the short (<=60 frame) tests cannot: slow pose
 drift, NaN/Inf creep through the LM damping or triangulation paths,
@@ -15,7 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sift_pyocl_tpu import SiftConfig
+from sift_pyocl_jax import SiftConfig
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -24,9 +24,9 @@ def _fresh_compile_state():
     executable native compile segfault before this module's big jit."""
     jax.clear_caches()
     yield
-from sift_pyocl_tpu.models.vo import VOConfig, vo_init, vo_step
-from sift_pyocl_tpu.sfm.evaluate import ate_rmse, camera_centers
-from sift_pyocl_tpu.utils.testimage import blob_cloud, render_point_cloud
+from sift_pyocl_jax.models.vo import VOConfig, vo_init, vo_step
+from sift_pyocl_jax.sfm.evaluate import ate_rmse, camera_centers
+from sift_pyocl_jax.utils.testimage import blob_cloud, render_point_cloud
 
 N_FRAMES = 200
 

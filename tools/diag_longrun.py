@@ -1,10 +1,10 @@
-"""VO long-run fence probe (VERDICT r4 #7): the 200-frame orbit of
+"""VO long-run fence probe: the 200-frame orbit of
 tests/test_vo_longrun.py as a parameterized CLI so VOConfig knobs
 (ba_iters, metric_weight, window...) can be A/B'd against ATE/path_ratio
 without editing the test.
 
 Run (CPU): python tools/diag_longrun.py --ba-iters 2
-Results recorded in BASELINE.md / PARITY.md.
+Results recorded in PARITY.md.
 """
 import argparse
 import json
@@ -30,10 +30,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from sift_pyocl_tpu import SiftConfig
-    from sift_pyocl_tpu.models.vo import VOConfig, vo_init, vo_step
-    from sift_pyocl_tpu.sfm.evaluate import ate_rmse, camera_centers
-    from sift_pyocl_tpu.utils.testimage import blob_cloud, render_point_cloud
+    from sift_pyocl_jax import SiftConfig
+    from sift_pyocl_jax.models.vo import VOConfig, vo_init, vo_step
+    from sift_pyocl_jax.sfm.evaluate import ate_rmse, camera_centers
+    from sift_pyocl_jax.utils.testimage import blob_cloud, render_point_cloud
 
     H, W = 224, 224
     K = [[280.0, 0, W / 2], [0, 280.0, H / 2], [0, 0, 1.0]]

@@ -1,4 +1,4 @@
-"""Zoom-axis diagnosis for the invariance battery (VERDICT r4 #5).
+"""Zoom-axis diagnosis for the invariance battery.
 
 The battery's zoom repeatability (0.71/0.74 at 0.5x/2x on the blob scene)
 is its weakest axis.  Hypotheses: (a) inherent to a +-1-octave scale change
@@ -48,9 +48,9 @@ def repeatability(kp0, kp1, A, b, shape, zoom, tol_px=2.0, margin=12.0,
 
 
 def main():
-    from sift_pyocl_tpu import MatchPlan, SiftPlan, SiftConfig
-    from sift_pyocl_tpu.ops.transform import affine_warp_jax
-    from sift_pyocl_tpu.utils.testimage import synthetic_scene
+    from sift_pyocl_jax import MatchPlan, SiftPlan, SiftConfig
+    from sift_pyocl_jax.ops.transform import affine_warp_jax
+    from sift_pyocl_jax.utils.testimage import synthetic_scene
 
     shape = (256, 256)
     img = synthetic_scene(shape, n_blobs=90, seed=7)

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
-"""SURVEY.md §8 verification checklist, ready to run the moment
-/root/reference/ is populated (VERDICT r1: "the repo should carry a
-ready-to-run §8 verification script so a populated mount is exploited
-immediately").
+"""SURVEY.md §8 verification checklist, ready to run the moment a
+checkout of the upstream reference (`--ref`) is available, so a populated
+mount is used at once.
 
     python tools/verify_reference.py [--ref /root/reference]
 
@@ -10,10 +9,10 @@ Checks, in SURVEY §8 order:
   1. file layout vs the §1/§2 reconstruction (package dir, kernel dir)
   2. SiftPlan symbols in plan.py (real line numbers for citations)
   3. __kernel inventory in *.cl vs the §2.2 table
-  4. param.py defaults vs sift_pyocl_tpu.config.SiftConfig
+  4. param.py defaults vs sift_pyocl_jax.config.SiftConfig
   5. matching distance metric (L1 vs L2) in matching*.cl
   6. test-file names vs §4
-  7. README/doc benchmark claims for BASELINE.md
+  7. README/doc benchmark claims for PERF.md
 
 Prints a report and exits 1 if the mount is empty, 0 otherwise.  Every
 mismatch is something to patch in SURVEY.md / oracle.py BEFORE perf work.
@@ -45,7 +44,7 @@ EXPECTED_KERNELS = {
     "transform.cl": ["transform"],
 }
 
-# param.py defaults the TPU config mirrors (SiftConfig field, expected value)
+# param.py defaults the JAX config mirrors (SiftConfig field, expected value)
 EXPECTED_PARAMS = {
     "DoubleImSize": ("double_im_size", False),
     "InitSigma": ("init_sigma", 1.6),
@@ -124,7 +123,7 @@ def main() -> int:
                 if not m:
                     print(f"  !! {ref_name}: not found in param.py")
                     continue
-                print(f"  {ref_name} = {m.group(1)}  (TPU {field}={expect})")
+                print(f"  {ref_name} = {m.group(1)}  (ours {field}={expect})")
 
     section("5. matching metric (decides ops/match.py parity mode)")
     for p in files:
@@ -145,7 +144,7 @@ def main() -> int:
         if t not in test_files:
             print(f"  !! expected test file not in mount: {t}")
 
-    section("7. README/doc benchmark claims -> BASELINE.md")
+    section("7. README/doc benchmark claims -> PERF.md")
     for p in files:
         if p.name.lower().startswith("readme") or p.suffix in (".rst", ".md"):
             text = p.read_text(errors="replace")
